@@ -1,537 +1,228 @@
-"""Benchmark: fingerprint sketching throughput (the `sketch -fp` hot path).
+"""Benchmark: fingerprint sketching throughput (the `sketch -fp` hot path)
+plus the other device routes, each through the production route.
 
-Measures the fused device pipeline (batched Duval factorization ->
-MurmurHash3 over the factor-length vectors, i.e. one fingerprint hash per
-100-base shift window) against the reference-equivalent scalar CPU
-pipeline (lyn2vec's per-window Python Duval + hash — the reference's
-fingerprint front-end is pure Python, lyn2vec.py:40).
-
-Timing methodology (two layers, both required on this rig):
-
-1. N dependent iterations are chained inside ONE jitted program (each
-   iteration's input derived from the previous output) and the result is
-   fetched to the host — on tunneled/relayed devices, enqueueing N
-   independent calls and blocking on the last does NOT serialize them and
-   wildly overstates throughput.
-2. The chain is timed at TWO lengths (I1, I2) and the rate is the SLOPE
-   (work2-work1)/(t2-t1).  Each host->device round trip through the
-   relay costs a fixed ~25-36 ms regardless of the work inside
-   (measured 2026-08-21: 48 adds/element and a 570-op/element kernel
-   both "take" 26 ms at 1M x 8 — the constant, not the device), so a
-   single-point measurement understates small workloads by up to ~10x.
-   The slope cancels the constant; `relay_const_ms` in `extra` reports
-   it for transparency.  The `e2e_cli_*` metric deliberately keeps every
-   overhead (it measures the user-facing CLI wall clock).
+Every number is wall clock around work that ends in ``block_until_ready``
+(or a host fetch), after one warm-up call that compiles; the reported rate
+is the median over ``REPS`` timed calls.  Any failure fails the run.  The
+output names the device it ran on.
 
 Prints ONE JSON line:
   {"metric": "sketched_bases_per_s", "value": N, "unit": "bases/s",
-   "vs_baseline": device_over_cpu_ratio}
+   "vs_baseline": device_over_scalar_cpu_ratio, "device": {...},
+   "extra": {...}}
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
+import statistics
 import sys
+import tempfile
 import time
 
 import numpy as np
 
-_CONSTS = []
+REPS = 5
+LUT = np.frombuffer(b"ACGT", dtype=np.uint8)
 
 
-def _best(fn, *args, reps: int = 3):
+def _median_s(fn, *args) -> float:
     import jax
 
-    jax.block_until_ready(fn(*args))
-    best = float("inf")
-    for _ in range(reps):
+    jax.block_until_ready(fn(*args))  # compile + warm
+    times = []
+    for _ in range(REPS):
         t0 = time.perf_counter()
-        jax.device_get(fn(*args))
-        best = min(best, time.perf_counter() - t0)
-    return best
+        jax.block_until_ready(fn(*args))
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
 
 
-def _slope_rate(make_bench, work_per_iter: float, i1: int, i2: int):
-    """Rate from the slope between two chained-iteration counts; cancels
-    the fixed per-call relay constant (see module docstring)."""
-    b1, args1 = make_bench(i1)
-    t1 = _best(b1, *args1)
-    b2, args2 = make_bench(i2)
-    t2 = _best(b2, *args2)
-    rate = work_per_iter * (i2 - i1) / max(t2 - t1, 1e-9)
-    _CONSTS.append(max(0.0, t1 - work_per_iter * i1 / rate))
-    return rate
-
-
-def main() -> int:
+def _bench_fingerprint(B: int = 1 << 20, W: int = 100) -> float:
+    """Shift windows -> CFL factor lengths -> MurmurHash3, on the route
+    ``fpmash_tpu.route.cfl_kernel`` picks.  Returns bases/s."""
     import jax
     import jax.numpy as jnp
 
-    from fpmash_tpu.ops.fused_pallas import fingerprint_hashes_fused
-
-    WINDOW = 100
-    B = 524288  # windows per batch (big enough that 12 extra chained
-    # iterations dwarf the ~25-36 ms relay constant)
+    from fpmash_tpu import route
+    from fpmash_tpu.ops.fused_pallas import fingerprint_hashes_stream
+    from fpmash_tpu.ops.lyndon import cfl_lengths_onehot, windows_from_stream
+    from fpmash_tpu.ops.murmur3 import murmur3_u64_batch
 
     rng = np.random.default_rng(0)
-    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
-    windows = lut[rng.integers(0, 4, size=(B, WINDOW))]
-    windows2 = lut[rng.integers(0, 4, size=(B, WINDOW))]
-    lengths = np.full((B,), WINDOW, np.int32)
-    w = jnp.asarray(windows)
-    w2 = jnp.asarray(windows2)
-    l = jnp.asarray(lengths)
+    stream = jnp.asarray(LUT[rng.integers(0, 4, size=B + W)])
+    starts = jnp.arange(B, dtype=jnp.int32)
+    lengths = jnp.full((B,), W, jnp.int32)
 
-    on_cpu = jax.default_backend() == "cpu"
-
-    def make_fp(iters):
-        @jax.jit
-        def bench(w, w2, l):
-            def body(carry, _):
-                # data dependency on prev iter that keeps the batch pure
-                # ACGT (the production fp path picks the dna16 2-bit
-                # packing for pure-DNA batches)
-                wv = jnp.where(carry > 0, w2, w)
-                if on_cpu:
-                    # pallas needs a real TPU; CPU runs the split XLA path
-                    from fpmash_tpu.ops.lyndon import cfl_lengths_onehot
-                    from fpmash_tpu.ops.murmur3 import murmur3_u64_batch
-
-                    fl, fc = cfl_lengths_onehot(wv, l)
-                    h1, _ = murmur3_u64_batch(fl.astype(jnp.uint64), fc, seed=42)
-                else:
-                    h1, _, _ = fingerprint_hashes_fused(wv, l, seed=42, pack="dna16")
-                return (h1[0] & jnp.uint64(1)).astype(jnp.int32), h1.sum()
-
-            _, sums = jax.lax.scan(body, jnp.int32(0), None, length=iters)
-            return sums
-
-        return bench, (w, w2, l)
-
-    if on_cpu:
-        # CPU run (CI smoke): single-point measurement, small shapes
-        bench, args = make_fp(4)
-        t = _best(bench, *args)
-        device_bases_per_s = B * 4 * WINDOW / t
+    if route.cfl_kernel() == "triton":
+        def fn(s, st, ln):
+            return fingerprint_hashes_stream(s, st, ln, L=W, seed=42)
     else:
-        device_bases_per_s = _slope_rate(make_fp, B * WINDOW, 2, 8)
+        @jax.jit
+        def fn(s, st, ln):
+            fl, fc = cfl_lengths_onehot(windows_from_stream(s, st, ln, L=W), ln)
+            return murmur3_u64_batch(fl.astype(jnp.uint64), fc, seed=42)[0]
 
-    # scalar CPU baseline (reference-equivalent Python front-end) on a sample
+    return B * W / _median_s(fn, stream, starts, lengths)
+
+
+def _scalar_bases_per_s(W: int = 100, n: int = 2048) -> float:
+    """Reference-equivalent scalar front-end (per-window Python Duval +
+    hash, lyn2vec.py:40) on a sample."""
     from fpmash_tpu.scalar.lyndon import cfl
     from fpmash_tpu.scalar.murmur3 import hash_u64_vector
 
-    sample = ["".join(chr(c) for c in row) for row in windows[:2048]]
+    rng = np.random.default_rng(1)
+    sample = [LUT[rng.integers(0, 4, size=W)].tobytes().decode() for _ in range(n)]
     t0 = time.perf_counter()
     for s in sample:
-        fac = cfl(s)
-        hash_u64_vector([len(f) for f in fac], seed=42, use64=False)
-    cpu_s = time.perf_counter() - t0
-    cpu_bases_per_s = len(sample) * WINDOW / cpu_s
-
-    # ---- secondary metrics (BASELINE: "...and sketch-pair comparisons/s");
-    # each guarded so a failure cannot lose the primary number ----
-    extra = {}
-    if not on_cpu:
-        try:
-            extra["icfl_comb_bases_per_s"] = round(_bench_icfl(w, w2, l, B, WINDOW))
-        except Exception as e:  # pragma: no cover
-            extra["icfl_comb_error"] = type(e).__name__
-        try:
-            extra["pair_comparisons_per_s"] = round(_bench_compare())
-        except Exception as e:  # pragma: no cover
-            extra["compare_error"] = type(e).__name__
-        try:
-            extra["fp_walk_pairs_per_s"] = round(_bench_walk())
-        except Exception as e:  # pragma: no cover
-            extra["walk_error"] = type(e).__name__
-        try:
-            r_fused, r_hash, r_bk = _bench_kmer()
-            extra["classic_kmer_bases_per_s"] = round(r_fused)
-            extra["kmer_hash_bases_per_s"] = round(r_hash)
-            extra["bottomk_bases_per_s"] = round(r_bk)
-        except Exception as e:  # pragma: no cover
-            extra["kmer_error"] = type(e).__name__
-        try:
-            extra["reads_mode_bases_per_s"] = round(_bench_reads_mode())
-        except Exception as e:  # pragma: no cover
-            extra["reads_mode_error"] = type(e).__name__
-        try:
-            extra["screen_distinct_bases_per_s"] = round(_bench_screen_distinct())
-        except Exception as e:  # pragma: no cover
-            extra["screen_distinct_error"] = type(e).__name__
-        try:
-            e2e_rate, parse_frac = _bench_e2e_cli()
-            extra["e2e_cli_bases_per_s"] = round(e2e_rate)
-            extra["e2e_host_parse_frac"] = round(parse_frac, 3)
-        except Exception as e:  # pragma: no cover
-            extra["e2e_error"] = type(e).__name__
-        try:
-            extra["e2e_classic_bases_per_s"] = round(_bench_e2e_classic())
-        except Exception as e:  # pragma: no cover
-            extra["e2e_classic_error"] = type(e).__name__
-        if _CONSTS:
-            extra["relay_const_ms"] = round(1e3 * float(np.median(_CONSTS)), 1)
-
-    print(
-        json.dumps(
-            {
-                "metric": "sketched_bases_per_s",
-                "value": round(device_bases_per_s),
-                "unit": "bases/s",
-                "vs_baseline": round(device_bases_per_s / cpu_bases_per_s, 2),
-                **({"extra": extra} if extra else {}),
-            }
-        )
-    )
-    return 0
+        hash_u64_vector([len(f) for f in cfl(s)], seed=42, use64=False)
+    return n * W / (time.perf_counter() - t0)
 
 
-def _bench_icfl(w, w2, l, B, WINDOW):
-    """Fused ICFL_COMB pipeline (9-of-10 families' representative)."""
-    import jax
-    import jax.numpy as jnp
-
-    from fpmash_tpu.ops.icfl_pallas import icfl_family_hashes_fused
-
-    def make(iters):
-        @jax.jit
-        def bench(w, w2, l):
-            def body(carry, _):
-                wv = jnp.where(carry > 0, w2, w)
-                h1, _, cnt, ok = icfl_family_hashes_fused(
-                    wv, l, family="ICFL_COMB", seed=42, pack="dna16"
-                )
-                return (h1[0] & jnp.uint64(1)).astype(jnp.int32), h1.sum() + ok.sum()
-
-            _, sums = jax.lax.scan(body, jnp.int32(0), None, length=iters)
-            return sums
-
-        return bench, (w, w2, l)
-
-    return _slope_rate(make, B * WINDOW, 2, 8)
-
-
-def _bench_compare(R: int = 512, Q: int = 512, S: int = 1000):
-    """Pairwise sketch comparisons/s (BASELINE config 4's kernel): the
-    Pallas tile kernel over a 512x512 grid (64x64 sequential grid blocks),
-    dependent iterations chained by a Python loop inside ONE jit, slope
-    over two chain lengths.  (lax.scan is avoided deliberately:
-    Pallas-under-scan used to trip the Mosaic index-map i64 bug.)"""
-    import jax
-    import jax.numpy as jnp
-
-    from fpmash_tpu.ops.compare_pallas import pairwise_common_denom_pallas
-
-    rng = np.random.default_rng(1)
-
-    def mk(n):
-        a = rng.integers(0, 1 << 62, size=(n, S + 64), dtype=np.uint64)
-        return jnp.asarray(np.sort(a, axis=1)[:, :S])
-
-    ref, qry = mk(R), mk(Q)
-    rl = jnp.full((R,), S, jnp.int32)
-    ql = jnp.full((Q,), S, jnp.int32)
-
-    def make(iters):
-        @jax.jit
-        def bench(ref, qry):
-            t = jnp.uint64(0)
-            acc = jnp.int32(0)
-            for _ in range(iters):
-                c, d = pairwise_common_denom_pallas(
-                    ref, rl, qry ^ t, ql, sketch_size=S
-                )
-                t = (c[0, 0] & 1).astype(jnp.uint64)
-                acc = acc + c.sum().astype(jnp.int32)
-            return acc
-
-        return bench, (ref, qry)
-
-    return _slope_rate(make, R * Q, 2, 8)
-
-
-def _bench_walk(R: int = 256, Q: int = 256, L: int = 64):
-    """Order-dependent fingerprint merge-join walk (`dist -fp` on raw .txt
-    lists): the Pallas shift-register tile kernel, in-jit dependent
-    chain, slope-timed."""
-    import jax
-    import jax.numpy as jnp
-
-    from fpmash_tpu.ops.walk_pallas import pairwise_walk_pallas
-
-    rng = np.random.default_rng(3)
-    ref = jnp.asarray(rng.integers(0, 1 << 32, size=(R, L), dtype=np.uint64))
-    qry = jnp.asarray(rng.integers(0, 1 << 32, size=(Q, L), dtype=np.uint64))
-    rl = jnp.asarray(rng.integers(1, L + 1, size=R).astype(np.int32))
-    ql = jnp.asarray(rng.integers(1, L + 1, size=Q).astype(np.int32))
-
-    def make(iters):
-        @jax.jit
-        def bench(ref, qry):
-            t = jnp.uint64(0)
-            acc = jnp.int32(0)
-            for _ in range(iters):
-                c, d = pairwise_walk_pallas(ref, rl, qry ^ t, ql, sketch_size=1000)
-                t = (c[0, 0] & 1).astype(jnp.uint64)
-                acc = acc + c.sum() + d.sum()
-            return acc
-
-        return bench, (ref, qry)
-
-    return _slope_rate(make, R * Q, 2, 8)
-
-
-def _bench_kmer(Nseq: int = 1 << 22, k: int = 21):
-    """Classic k=21 sketch path, three honest slope numbers:
-
-    returns (fused_rate, kmer_hash_rate, bottomk_rate) in bases/s, where
-    fused is the production hash -> threshold bottom-k pipeline in ONE
-    jit (ops/kmers.classic_sketch_device).
-    """
-    import jax
-    import jax.numpy as jnp
-
-    from fpmash_tpu.ops.bottomk import bottom_k_threshold_planes
-    from fpmash_tpu.ops.kmers import classic_sketch_device
-    from fpmash_tpu.ops.kmers_pallas import kmer_hashes_route_planes
-
-    rng = np.random.default_rng(2)
-    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
-    seq = jnp.asarray(lut[rng.integers(0, 4, size=Nseq)])
-    seq2 = jnp.asarray(lut[rng.integers(0, 4, size=Nseq)])
-    length = jnp.int32(Nseq)
-    # hash-pool planes (the representation the fused pipeline uses; XLA
-    # u64 elementwise is ~100x slower than HBM-bound on this chip, so the
-    # production path keeps (lo, hi) u32 planes end to end)
-    plo = jnp.asarray(rng.integers(0, 1 << 32, size=Nseq, dtype=np.uint64).astype(np.uint32))
-    phi = jnp.asarray(rng.integers(0, 1 << 32, size=Nseq, dtype=np.uint64).astype(np.uint32))
-    codes = jnp.asarray(rng.integers(0, 4, size=Nseq).astype(np.uint32))
-    codes2 = jnp.asarray(rng.integers(0, 4, size=Nseq).astype(np.uint32))
-
-    def make_hash(iters):
-        @jax.jit
-        def bench(codes, codes2):
-            t = jnp.uint32(0)
-            acc = jnp.uint32(0)
-            for _ in range(iters):
-                cv = jnp.where(t > 0, codes2, codes)
-                h1l, h1h, vw = kmer_hashes_route_planes(cv, k=k, seed=42)
-                t = h1l[0] & jnp.uint32(1)
-                acc = acc + jnp.sum(h1l, dtype=jnp.uint32)
-            return acc
-
-        return bench, (codes, codes2)
-
-    def make_bk(iters):
-        @jax.jit
-        def bench(plo, phi):
-            t = jnp.uint32(0)
-            acc = jnp.uint64(0)
-            for _ in range(iters):
-                # need_counts=False matches the default-CLI fused pipeline
-                # (multiplicities are computed only for -M/-m/-c)
-                vals = bottom_k_threshold_planes(
-                    plo ^ t, phi, (plo ^ t) > 0, s=1000, need_counts=False
-                )[0]
-                t = (vals[0] & jnp.uint64(1)).astype(jnp.uint32)
-                acc = acc + vals.sum()
-            return acc
-
-        return bench, (plo, phi)
-
-    def make_fused(iters):
-        @jax.jit
-        def bench(seq, seq2):
-            t = jnp.uint8(0)
-            acc = jnp.uint64(0)
-            for _ in range(iters):
-                sv = jnp.where(t > 0, seq2, seq)
-                vals, counts, n, ok = classic_sketch_device(
-                    sv, length, k=k, s=1000, seed=42
-                )
-                t = (vals[0] & jnp.uint64(1)).astype(jnp.uint8)
-                acc = acc + vals.sum()
-            return acc
-
-        return bench, (seq, seq2)
-
-    r_hash = _slope_rate(make_hash, Nseq, 4, 16)
-    r_bk = _slope_rate(make_bk, Nseq, 4, 16)
-    r_fused = _slope_rate(make_fused, Nseq, 4, 16)
-    return r_fused, r_hash, r_bk
-
-
-def _bench_reads_mode(Nseq: int = 1 << 22, k: int = 21):
-    """Reads-mode chunk kernel (collect-all contract backing `-r -m 2`
-    sketches): every sub-threshold survivor + exact counts, no pool
-    download.  Slope-timed like the other kernel metrics."""
-    import jax
+def _bench_classic(N: int = 1 << 24, k: int = 21) -> float:
+    """Classic k=21, s=1000 sketch of one 16-Mbase chunk
+    (ops.kmers.classic_sketch_device).  Returns bases/s."""
     import jax.numpy as jnp
 
     from fpmash_tpu.ops.kmers import classic_sketch_device
 
-    rng = np.random.default_rng(11)
-    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
-    half = lut[rng.integers(0, 4, size=Nseq // 2)]
-    seq = jnp.asarray(np.concatenate([half, half]))  # coverage-2 pool
-    half2 = lut[rng.integers(0, 4, size=Nseq // 2)]
-    seq2 = jnp.asarray(np.concatenate([half2, half2]))
-    length = jnp.int32(Nseq)
+    seq = jnp.asarray(LUT[np.random.default_rng(2).integers(0, 4, size=N)])
 
-    def make(iters):
-        @jax.jit
-        def bench(seq, seq2):
-            t = jnp.uint8(0)
-            acc = jnp.uint64(0)
-            for _ in range(iters):
-                sv = jnp.where(t > 0, seq2, seq)
-                vals, counts, n, ok = classic_sketch_device(
-                    sv, length, k=k, s=1000, seed=42, out_slots=16000
-                )
-                t = (vals[0] & jnp.uint64(1)).astype(jnp.uint8)
-                acc = acc + vals.sum() + counts.sum().astype(jnp.uint64)
-            return acc
+    def fn(s):
+        return classic_sketch_device(s, jnp.int32(N), k=k, s=1000, seed=42)
 
-        return bench, (seq, seq2)
-
-    return _slope_rate(make, Nseq, 4, 16)
+    return N / _median_s(fn, seq)
 
 
-def _bench_screen_distinct(Nseq: int = 1 << 22, k: int = 21):
-    """screen's device distinct-count route: hash -> planes sort ->
-    run-length -> compacted distinct prefix, on a coverage-8 pool."""
-    import jax
+def _bench_screen_distinct(N: int = 1 << 22, k: int = 21) -> float:
+    """screen's device distinct count on a coverage-8 pool.  Bases/s."""
     import jax.numpy as jnp
 
     from fpmash_tpu.models.sketch import _distinct_counts_run
 
-    rng = np.random.default_rng(12)
-    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
-    piece = lut[rng.integers(0, 4, size=Nseq // 8)]
-    b1 = jnp.asarray(np.tile(piece, 8))
-    piece2 = lut[rng.integers(0, 4, size=Nseq // 8)]
-    b2 = jnp.asarray(np.tile(piece2, 8))
-    kw = dict(
-        k=k, noncanonical=False, preserve_case=False, seed=42, use64=True,
-    )
+    piece = LUT[np.random.default_rng(12).integers(0, 4, size=N // 8)]
+    buf = jnp.asarray(np.tile(piece, 8))
 
-    def make(iters):
-        @jax.jit
-        def bench(b1, b2):
-            t = jnp.uint32(0)
-            acc = jnp.int64(0)
-            for _ in range(iters):
-                bv = jnp.where(t > 0, b2, b1)
-                vlo, vhi, counts, nd = _distinct_counts_run(
-                    bv, jnp.int32(bv.shape[0]), **kw
-                )
-                t = vlo[0] & jnp.uint32(1)
-                acc = acc + nd
-            return acc
-
-        return bench, (b1, b2)
-
-    return _slope_rate(make, Nseq, 2, 8)
-
-
-def _bench_e2e_cli(n_reads: int = 256, read_len: int = 2000):
-    """Wall-clock of the full user workflow through the CLI surface:
-    `sketch --direct-fp` on a generated multi-MB FASTA (shift windows +
-    Duval + murmur + .msh write) followed by `dist -fp` of the two
-    sketches — host FASTA parsing, device compute, relay dispatches and
-    .msh I/O all included (BASELINE's "sequences/s per chip" as a user
-    experiences it on this rig; NOT slope-corrected, by design).
-
-    The workflow runs once to compile (the window batch shapes are
-    padded/bucketed, so run 2 reuses executables like any warm pipeline),
-    then the timed run is a fresh end-to-end pass in the same process.
-    Returns ``(input_bases_per_s, host_parse_fraction)``.
-    """
-    import contextlib
-    import io
-    import os
-    import tempfile
-
-    from fpmash_tpu.cli import main as cli_main
-    from fpmash_tpu.models.fingerprint import extract_reads
-
-    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
-
-    def write_fasta(path, seed_off):
-        rng2 = np.random.default_rng(7 + seed_off)
-        with open(path, "w") as f:
-            for i in range(n_reads):
-                seq = lut[rng2.integers(0, 4, size=read_len)].tobytes().decode()
-                f.write(f">r{seed_off}_{i}\n{seq}\n")
-
-    with tempfile.TemporaryDirectory() as td:
-        fa = os.path.join(td, "a.fasta")
-        fb = os.path.join(td, "b.fasta")
-        write_fasta(fa, 0)
-        write_fasta(fb, 1)
-
-        def workflow():
-            with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(
-                io.StringIO()
-            ):
-                assert cli_main(["sketch", "--direct-fp", fa, "-o",
-                                 os.path.join(td, "a")]) == 0
-                assert cli_main(["sketch", "--direct-fp", fb, "-o",
-                                 os.path.join(td, "b")]) == 0
-                assert cli_main(["dist", "-fp", os.path.join(td, "a.msh"),
-                                 os.path.join(td, "b.msh")]) == 0
-
-        workflow()  # compile/warm pass
-        t0 = time.perf_counter()
-        workflow()
-        wall = time.perf_counter() - t0
-
-        # host-side parse share: the FASTA reader alone on the same inputs
-        t0 = time.perf_counter()
-        n_parsed = len(extract_reads(fa, rev_com=True)) + len(
-            extract_reads(fb, rev_com=True)
+    def fn(b):
+        return _distinct_counts_run(
+            b, jnp.int32(N), k=k, noncanonical=False, preserve_case=False,
+            seed=42, use64=True,
         )
-        parse_t = time.perf_counter() - t0
-        # rev_com=True emits only the `_0` lines (the reference's inverted
-        # rev-com condition never fires — see models/fingerprint.py)
-        assert n_parsed == 2 * n_reads
 
-    total_bases = 2 * n_reads * read_len
-    return total_bases / wall, parse_t / wall
+    return N / _median_s(fn, buf)
 
 
-def _bench_e2e_classic(n_bases: int = 8_000_000):
-    """Wall clock of a classic `sketch` through the CLI surface on an
-    8-Mbase generated FASTA (k=21, s=1000): FASTA parse, the fused
-    direct device route (one padded chunk up, s-sized result down), and
-    the .msh write.  Warm run timed (run 1 compiles)."""
-    import contextlib
-    import io
-    import os
-    import tempfile
+def _bench_compare(R: int = 256, S: int = 1000) -> float:
+    """All-pairs compare tile (R x R sorted s=1000 sketches).  Pairs/s."""
+    import jax.numpy as jnp
 
+    from fpmash_tpu.ops.compare import pairwise_common_denom
+
+    rng = np.random.default_rng(3)
+    a = np.sort(rng.integers(0, 1 << 62, size=(R, S + 64), dtype=np.uint64), 1)
+    ref = jnp.asarray(a[:, :S])
+    lens = jnp.full((R,), S, jnp.int32)
+
+    def fn(r):
+        return pairwise_common_denom(r, lens, r, lens, sketch_size=S)
+
+    return R * R / _median_s(fn, ref)
+
+
+def _bench_walk(R: int = 256, L: int = 64) -> float:
+    """Unsorted fingerprint merge-join walk (`dist -fp`).  Pairs/s."""
+    import jax.numpy as jnp
+
+    from fpmash_tpu.ops.walk import pairwise_walk_common_denom
+
+    rng = np.random.default_rng(4)
+    ref = jnp.asarray(rng.integers(0, 1 << 32, size=(R, L), dtype=np.uint64))
+    lens = jnp.asarray(rng.integers(1, L + 1, size=R).astype(np.int32))
+
+    def fn(r):
+        return pairwise_walk_common_denom(r, lens, r, lens, sketch_size=1000)
+
+    return R * R / _median_s(fn, ref)
+
+
+def _cli_seconds(argv_list) -> float:
+    """Median wall clock of a CLI command sequence, after one warm run."""
     from fpmash_tpu.cli import main as cli_main
 
-    rng = np.random.default_rng(9)
-    lut = np.frombuffer(b"ACGT", dtype=np.uint8)
-    with tempfile.TemporaryDirectory() as td:
-        fa = os.path.join(td, "g.fasta")
-        with open(fa, "w") as f:
-            f.write(">g synthetic\n")
-            seq = lut[rng.integers(0, 4, size=n_bases)].tobytes().decode()
-            for i in range(0, n_bases, 80):
-                f.write(seq[i : i + 80] + "\n")
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()):
+            for argv in argv_list:
+                assert cli_main(argv) == 0, argv
 
-        def run(tag):
-            with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(
-                io.StringIO()
-            ):
-                assert cli_main(["sketch", fa, "-o", os.path.join(td, tag)]) == 0
-
-        run("w")  # compile/warm
+    run()
+    times = []
+    for _ in range(REPS):
         t0 = time.perf_counter()
-        run("t")
-        return n_bases / (time.perf_counter() - t0)
+        run()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def _bench_e2e(td: str, n_reads: int = 256, read_len: int = 2000):
+    """`sketch --direct-fp` of two FASTAs + `dist -fp`, and a classic
+    `sketch` of an 8-Mbase genome, through the CLI.  Bases/s each."""
+    rng = np.random.default_rng(7)
+    for tag in ("a", "b"):
+        with open(os.path.join(td, tag + ".fasta"), "w") as f:
+            for i in range(n_reads):
+                seq = LUT[rng.integers(0, 4, size=read_len)].tobytes().decode()
+                f.write(f">{tag}{i}\n{seq}\n")
+    p = lambda name: os.path.join(td, name)  # noqa: E731
+    fp_s = _cli_seconds([
+        ["sketch", "--direct-fp", p("a.fasta"), "-o", p("a")],
+        ["sketch", "--direct-fp", p("b.fasta"), "-o", p("b")],
+        ["dist", "-fp", p("a.msh"), p("b.msh")],
+    ])
+    n_bases = 8_000_000
+    with open(p("g.fasta"), "w") as f:
+        f.write(">g synthetic\n")
+        seq = LUT[rng.integers(0, 4, size=n_bases)].tobytes().decode()
+        for i in range(0, n_bases, 80):
+            f.write(seq[i : i + 80] + "\n")
+    classic_s = _cli_seconds([["sketch", p("g.fasta"), "-o", p("g")]])
+    return 2 * n_reads * read_len / fp_s, n_bases / classic_s
+
+
+def main() -> int:
+    import jax
+
+    import fpmash_tpu  # noqa: F401  (x64 + compile cache)
+
+    dev = jax.devices()[0]
+    device_rate = _bench_fingerprint()
+    cpu_rate = _scalar_bases_per_s()
+    extra = {
+        "classic_sketch_bases_per_s": round(_bench_classic()),
+        "screen_distinct_bases_per_s": round(_bench_screen_distinct()),
+        "compare_pairs_per_s": round(_bench_compare()),
+        "fp_walk_pairs_per_s": round(_bench_walk()),
+    }
+    with tempfile.TemporaryDirectory() as td:
+        fp_rate, classic_rate = _bench_e2e(td)
+    extra["e2e_fp_cli_bases_per_s"] = round(fp_rate)
+    extra["e2e_classic_cli_bases_per_s"] = round(classic_rate)
+    print(json.dumps({
+        "metric": "sketched_bases_per_s",
+        "value": round(device_rate),
+        "unit": "bases/s",
+        "vs_baseline": round(device_rate / cpu_rate, 2),
+        "device": {
+            "platform": dev.platform,
+            "kind": dev.device_kind,
+            "count": len(jax.devices()),
+        },
+        "extra": extra,
+    }))
+    return 0
 
 
 if __name__ == "__main__":

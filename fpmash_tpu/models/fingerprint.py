@@ -1,6 +1,6 @@
 """Fingerprint front-end: reads -> Lyndon-factorization fingerprints.
 
-TPU-first rebuild of the lyn2vec pipeline (lyn2vec/lyn2vec.py +
+Batched device rebuild of the lyn2vec pipeline (lyn2vec/lyn2vec.py +
 fingerprint_utils.py).  A *fingerprint* of a read is the sequence of factor
 lengths of its Lyndon/inverse-Lyndon factorization; in "shift" mode every
 cyclic 100-wide window of the read is fingerprinted separately
@@ -13,8 +13,8 @@ Where the reference forks a multiprocessing.Pool over read chunks
 ``[n_windows, width]`` u8 array and factorizes it on-device: the batched
 Duval kernel (``fpmash_tpu.ops.lyndon``) for CFL, the ICFL automaton +
 boundary-mask algebra (``ops/icfl.py`` + ``ops/factorize.py``) for every
-other family, with fused Pallas pipelines (``ops/fused_pallas.py``,
-``ops/icfl_pallas.py``) on TPU.  The scalar models remain only as parity
+other family, with the fused Triton kernel (``ops/fused_pallas.py``) for
+CFL on the GPU.  The scalar models remain only as parity
 oracles and for tiny inputs not worth a dispatch.
 
 Output line formats are byte-compatible with the reference:

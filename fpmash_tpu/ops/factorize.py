@@ -70,8 +70,8 @@ def _base_mask(batch, n, base: str, threshold):
 
 
 def _complement(b):
-    """Byte complement as a 5-way select chain — TPU gathers scalarize, so
-    the 256-entry table is applied with compares instead."""
+    """Byte complement as a 5-way select chain (the 256-entry table
+    applied with compares instead of a gather)."""
     A, C, G, T = (jnp.uint8(ord(x)) for x in "ACGT")
     N = jnp.uint8(ord("N"))
     z = jnp.uint8(0)

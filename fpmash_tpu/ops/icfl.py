@@ -5,7 +5,7 @@ The reference computes ICFL with a per-string Python recursion
 bounded right extension via a KMP failure pass, and a post-hoc merge) —
 ~3 Mbases/s on one host core.  Here the whole ``[B, L]`` batch advances as
 ONE ``lax.while_loop`` whose step applies every row's automaton transition
-in parallel on the VPU, the same architecture as the batched Duval kernel
+in parallel, the same architecture as the batched Duval kernel
 (:mod:`fpmash_tpu.ops.lyndon`).
 
 The automaton restates the recursion with two observations that remove the
@@ -59,12 +59,13 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from fpmash_tpu.ops.lyndon import lengths_from_boundary, unpack_boundary_words
 
 # Level-record packing: bpos | plen | last in 10-bit fields + marker bit.
 _F = 10  # field width: positions/lengths < 1024 (we gate L <= 1023)
-_MARKER = jnp.uint32(1 << 30)
+_MARKER = np.uint32(1 << 30)  # NumPy: no jnp work at import
 
 SCAN, CHAIN, ROWDONE = 0, 1, 2
 

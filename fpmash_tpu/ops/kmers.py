@@ -48,7 +48,7 @@ def alphabet_mask(alphabet: str) -> np.ndarray:
 
 @partial(
     jax.jit,
-    static_argnames=("k", "noncanonical", "preserve_case", "seed", "pallas"),
+    static_argnames=("k", "noncanonical", "preserve_case", "seed"),
 )
 def _kmer_hashes_acgt(
     seq: jax.Array,
@@ -58,12 +58,11 @@ def _kmer_hashes_acgt(
     noncanonical: bool,
     preserve_case: bool,
     seed: int,
-    pallas: bool = False,
 ):
     """Lane-parallel DNA k-mer hashing (k <= 32): the whole window is kept
     as one 2-bit-packed u64 per position, so canonical selection is a
     single 64-bit min and no ``[N, k]`` byte matrix is ever materialized
-    (the gather formulation's 21x memory blowup OOM'd VMEM on chip).
+    (the gather formulation costs k bytes of memory per position).
 
     Steps, all elementwise over ``[N]`` vectors (XLA fuses into one pass):
 
@@ -94,19 +93,6 @@ def _kmer_hashes_acgt(
     code = jnp.full(seq.shape, 4, jnp.uint32)
     for v, ch in enumerate(b"ACGT"):
         code = jnp.where(seq == jnp.uint8(ch), jnp.uint32(v), code)
-
-    if pallas:
-        # fully fused VMEM pipeline: ladder + canonical + murmur in one
-        # sequential-grid kernel (ops/kmers_pallas.py).  The XLA ladder
-        # below materializes ~27 rolled [N] u64 temporaries through HBM,
-        # which capped the hash stage at ~0.3 Gbases/s on chip.
-        from fpmash_tpu.ops.kmers_pallas import kmer_hashes_slab_pallas
-
-        h1, vw = kmer_hashes_slab_pallas(
-            code, k=k, noncanonical=noncanonical, seed=seed
-        )
-        pos = jnp.arange(N, dtype=jnp.int32)
-        return h1, vw & (pos <= length - k)
 
     valid_char = code < 4
     c64 = jnp.minimum(code, 3).astype(jnp.uint64)
@@ -207,26 +193,14 @@ def kmer_hashes(
     the caller; the full 64-bit h1 is always returned.
 
     The default DNA alphabet takes the packed lane-parallel fast path
-    (:func:`_kmer_hashes_acgt`) — with the Pallas canonical+murmur tail
-    on TPU, the pure-XLA byte rebuild elsewhere; other alphabets
-    (protein, custom ``-z``) use the generic gather formulation.
+    (:func:`_kmer_hashes_acgt`); other alphabets (protein, custom ``-z``)
+    use the generic gather formulation.
     """
     if set(alphabet) == set("ACGT") and k <= 32:
-        kw = dict(
-            k=k, noncanonical=noncanonical, preserve_case=preserve_case, seed=seed
+        return _kmer_hashes_acgt(
+            seq, length, k=k, noncanonical=noncanonical,
+            preserve_case=preserve_case, seed=seed,
         )
-        if jax.default_backend() != "cpu":
-            try:
-                return _kmer_hashes_acgt(seq, length, pallas=True, **kw)
-            except Exception as e:  # pragma: no cover - Mosaic regression
-                from fpmash_tpu.utils.trace import warn
-
-                warn(
-                    f"kmers: pallas canonical+murmur tail unavailable "
-                    f"({type(e).__name__}), falling back to the XLA byte "
-                    "rebuild (slower)"
-                )
-        return _kmer_hashes_acgt(seq, length, pallas=False, **kw)
     return _kmer_hashes_generic(
         seq,
         length,
@@ -263,8 +237,7 @@ def _kmer_hashes_generic(
         lower = (seq > 96) & (seq < 123)
         seq = jnp.where(lower, seq - 32, seq)
 
-    # gather-free table lookups: XLA gathers scalarize on TPU, so the
-    # 256-entry alphabet/complement tables are applied as short select
+    # the 256-entry alphabet/complement tables are applied as short select
     # chains over the (few) characters they actually affect
     valid_char = jnp.zeros(seq.shape, bool)
     for ch in sorted(set(alphabet)):
@@ -322,7 +295,10 @@ def encode_seq(seq: str | bytes) -> np.ndarray:
 
 @partial(
     jax.jit,
-    static_argnames=("k", "s", "noncanonical", "preserve_case", "seed", "min_cov", "boost", "need_counts", "bk_compact", "out_slots", "use_topk"),
+    static_argnames=(
+        "k", "s", "noncanonical", "preserve_case", "seed", "min_cov", "boost",
+        "need_counts", "out_slots",
+    ),
 )
 def classic_sketch_device(
     seq: jax.Array,  # u8[N]
@@ -336,131 +312,62 @@ def classic_sketch_device(
     min_cov: int = 1,
     boost: int = 1,
     need_counts: bool | None = None,
-    bk_compact: bool | None = None,
     out_slots: int | None = None,
-    use_topk: bool | None = None,
 ):
     """Fused classic sketch: sequence bytes -> bottom-s MinHash, one jit.
 
     The full addMinHashes + MinHashHeap pipeline (Sketch.cpp:664-735,
-    MinHashHeap.cpp) with NO u64-wide intermediate: the fused Pallas
-    kernel emits (lo, hi) u32 hash planes and the planes bottom-k
-    consumes them directly (XLA u64 elementwise is ~100x slower than
-    HBM-bound on this chip); u64 appears only in the s output slots.
+    MinHashHeap.cpp) for DNA with 16 < k <= 32: the packed k-mer hash
+    (:func:`_kmer_hashes_acgt`), a threshold on the hash's high 32 bits,
+    then the planes bottom-k
+    (:func:`fpmash_tpu.ops.bottomk.bottom_k_premasked_planes`) — only
+    ``s``-sized results leave the device.
+
+    The threshold fraction is computed against the STATIC padded N, not
+    the valid length: it collects ``8*s*boost*(valid/N)`` candidates in
+    expectation, so callers retry with a higher ``boost`` when
+    valid << N (the ``ok`` flag reports under-collection;
+    ``models.sketch._classic_sketch_direct`` gates inputs at N/8 and
+    ladders boost 1 -> 2).
 
     Returns ``(values u64[s], counts u32[s], n u32, ok bool)`` with
-    :func:`fpmash_tpu.ops.bottomk.bottom_k_threshold` semantics.
-    TPU-only (the Pallas route); callers fall back to
-    kmer_hashes + bottom_k_threshold elsewhere.
+    :func:`fpmash_tpu.ops.bottomk.bottom_k_threshold` semantics.  With
+    ``out_slots`` (reads mode) the collect-all contract applies instead:
+    every sub-threshold value comes back with its exact count in
+    ``out_slots`` slots, and ``min_cov`` is left to the caller's
+    cross-chunk merge.
     """
-    from fpmash_tpu.ops.bottomk import (
-        bottom_k_premasked_planes,
-        bottom_k_threshold_planes,
-    )
-    from fpmash_tpu.ops.kmers_pallas import (
-        kmer_hashes_packed_masked_planes,
-        kmer_hashes_route_planes,
-    )
+    from fpmash_tpu.ops.bottomk import bottom_k_premasked_planes
 
-    N = seq.shape[0]
-    sequ = seq.astype(jnp.uint8)
-    if not preserve_case:
-        lower = (sequ > 96) & (sequ < 123)
-        sequ = jnp.where(lower, sequ - 32, sequ)
-    code = jnp.full((N,), 4, jnp.uint32)
-    for v, ch in enumerate(b"ACGT"):
-        code = jnp.where(sequ == jnp.uint8(ch), jnp.uint32(v), code)
+    if not 16 < k <= 32:
+        raise ValueError(f"classic_sketch_device needs 16 < k <= 32, got {k}")
     if need_counts is None:
         # default CLI sketching consumes no multiplicities; reads mode
         # (min_cov/-M/-c) asks for them explicitly
         need_counts = min_cov > 1
-    if 16 < k <= 32:
-        # threshold-fused route: the packed hash kernel pre-masks its
-        # output planes (invalid / past-end / above-threshold lanes hold
-        # U32MAX), so bottom-k starts at its compaction directly.
-        #
-        # The threshold fraction is computed against the STATIC padded N,
-        # not the valid length: with a short sequence in a padded buffer,
-        # candidates concentrate in the active rows, and an n-based
-        # fraction exceeds the per-row P slots sized for uniform density
-        # (row_overflow tripped on every chunk with >=8x padding).  An
-        # N-based fraction keeps per-row density = 8*s*boost*cols/N by
-        # construction; it collects 8*s*boost*(valid/N) candidates, so
-        # callers retry with a higher boost when valid << N (the ok flag
-        # reports under-collection; _classic_sketch_direct gates inputs
-        # at N/8 and ladders boost 1 -> 2).
-        frac_f = min(1.0, (8.0 * s * boost) / max(N - (k - 1), 1))
-        sat = frac_f >= 1.0
-        t_hi = jnp.uint32(
-            0xFFFFFFFF if sat else min(0xFFFFFFFF, int(frac_f * float(2**32)))
-        )
-        if (
-            (use_topk if use_topk is not None else True)
-            and min_cov == 1
-            and not sat
-            # survivor density 8*s*boost/N <= 1/256 keeps the per-group
-            # (128 elems) survivor count Poisson(<=0.5): overflow is
-            # then ~1e-9/group instead of routine at small N
-            and N >= 2048 * s * boost
-        ):
-            # round-5 production route: the topk kernel compacts the
-            # survivors to N/16 IN the hash kernel (sublane sort-8 + lane
-            # fold merges in vregs — every XLA-side compaction
-            # re-streamed the pool and lost to the row sort, exp_bk_r5),
-            # with duplicates preserved (counts stay exact) and an exact
-            # per-group overflow flag (> 8 survivors per 128-element
-            # group: pathological repeats or a saturated threshold; the
-            # boost ladder / pool path take over via ok=False)
-            # sublane-rotation variant: the slice-based network left 7/8
-            # of every vreg idle — 4.51 vs 2.51 G/s kernel-only on chip
-            # (exp_bk_r5 topk_kernel A/B), value-parity asserted on chip
-            from fpmash_tpu.ops.kmers_pallas import (
-                kmer_hashes_packed_topk8r_planes,
-            )
-
-            clo, chi, overflow = kmer_hashes_packed_topk8r_planes(
-                code, t_hi, length, k=k, noncanonical=noncanonical, seed=seed
-            )
-            if out_slots is not None:
-                # reads-mode collect-all over the COMPACTED planes: every
-                # survivor (incl. duplicates) is present unless overflow,
-                # so the cross-chunk count merge stays exact — and the
-                # full-pool row sort (the 837 Mbases/s limiter of the
-                # masked collect-all route) disappears
-                v, c, nv, ok = bottom_k_premasked_planes(
-                    clo, chi, jnp.bool_(sat), s=out_slots, min_cov=1,
-                    need_counts=True, boost=boost, collect_all=True,
-                    expected_s=s * boost,
-                )
-            else:
-                v, c, nv, ok = bottom_k_premasked_planes(
-                    clo, chi, jnp.bool_(sat), s=s, min_cov=1,
-                    need_counts=need_counts, boost=boost, compact=bk_compact,
-                )
-            return v, c, nv, ok & ~overflow
-        mlo, mhi = kmer_hashes_packed_masked_planes(
-            code, t_hi, length, k=k, noncanonical=noncanonical, seed=seed
-        )
-        if out_slots is not None:
-            # reads-mode collect-all contract: the threshold above is
-            # still sized by s*boost, but EVERY sub-threshold survivor
-            # comes back with its exact count (min_cov applies after the
-            # caller's cross-chunk merge) — see bottom_k_premasked_planes
-            return bottom_k_premasked_planes(
-                mlo, mhi, jnp.bool_(sat), s=out_slots, min_cov=1,
-                need_counts=True, boost=boost, collect_all=True,
-                expected_s=s * boost,
-            )
-        return bottom_k_premasked_planes(
-            mlo, mhi, jnp.bool_(sat), s=s, min_cov=min_cov,
-            need_counts=need_counts, boost=boost, compact=bk_compact,
-        )
-    h1l, h1h, vw = kmer_hashes_route_planes(
-        code, k=k, noncanonical=noncanonical, seed=seed
+    N = seq.shape[0]
+    h1, valid = _kmer_hashes_acgt(
+        seq, length, k=k, noncanonical=noncanonical,
+        preserve_case=preserve_case, seed=seed,
     )
-    pos = jnp.arange(N, dtype=jnp.int32)
-    valid = vw & (pos <= length.astype(jnp.int32) - k)
-    return bottom_k_threshold_planes(
-        h1l, h1h, valid, s=s, min_cov=min_cov, boost=boost,
-        need_counts=need_counts, compact=bk_compact,
+    frac_f = min(1.0, (8.0 * s * boost) / max(N - (k - 1), 1))
+    sat = frac_f >= 1.0
+    t_hi = 0xFFFFFFFF if sat else min(0xFFFFFFFF, int(frac_f * float(2**32)))
+    lo = (h1 & jnp.uint64(0xFFFFFFFF)).astype(jnp.uint32)
+    hi = (h1 >> jnp.uint64(32)).astype(jnp.uint32)
+    # dropped lanes (invalid, past the end, above the threshold) hold
+    # U32MAX on both planes
+    keep = valid & (hi <= jnp.uint32(t_hi))
+    U32MAX = jnp.uint32(0xFFFFFFFF)
+    mlo = jnp.where(keep, lo, U32MAX)
+    mhi = jnp.where(keep, hi, U32MAX)
+    if out_slots is not None:
+        return bottom_k_premasked_planes(
+            mlo, mhi, jnp.bool_(sat), s=out_slots, min_cov=1,
+            need_counts=True, boost=boost, collect_all=True,
+            expected_s=s * boost,
+        )
+    return bottom_k_premasked_planes(
+        mlo, mhi, jnp.bool_(sat), s=s, min_cov=min_cov,
+        need_counts=need_counts, boost=boost,
     )

@@ -4,7 +4,7 @@ The reference computes one Duval factorization per shift window, serially,
 inside a fork pool (lyn2vec factorizations.py:102, driven by lyn2vec.py:40).
 Here the whole batch of windows ``[B, L]`` runs as ONE ``lax.scan`` whose
 state advances every row's Duval state machine a step per iteration —
-sequential in at most ``4L`` steps, data-parallel over B lanes on the VPU.
+sequential in at most ``4L`` steps, data-parallel over B lanes.
 
 Duval's algorithm is restated as a 2-phase per-row automaton:
 
@@ -105,7 +105,7 @@ def cfl_lengths(batch: jax.Array, lengths: jax.Array):
 
 @partial(jax.jit, static_argnames=())
 def cfl_lengths_sa(batch: jax.Array, lengths: jax.Array):
-    """Duval factor lengths via suffix ranks — the TPU-native formulation.
+    """Duval factor lengths via suffix ranks — a loop-free formulation.
 
     Uses the classical characterization: the CFL factor start positions of
     ``w`` are exactly the left-to-right *strict minima* of the suffix
@@ -180,10 +180,11 @@ def cfl_boundary_mask(batch: jax.Array, lengths: jax.Array) -> jax.Array:
 
 
 def cfl_lengths_onehot(batch: jax.Array, lengths: jax.Array):
-    """Duval scan with explicit one-hot gathers — the TPU-tuned variant.
+    """Duval scan with explicit one-hot gathers — the XLA route of the
+    CFL fingerprint step (the GPU runs the fused Triton kernel instead).
 
-    Same automaton as :func:`cfl_lengths`, but engineered for HBM traffic
-    and VPU shape:
+    Same automaton as :func:`cfl_lengths`, but engineered for memory
+    traffic and vector shape:
 
     * per-row dynamic reads ``s[k]``/``s[j]`` are masked reductions over
       a 4-chars-per-u32 packed copy of the batch (no XLA gather ops, and
@@ -381,6 +382,17 @@ def cfl_lengths_cmp(batch: jax.Array, lengths: jax.Array):
     fac_len = jnp.maximum(jnp.minimum(nxt, n[:, None]) - jnp.minimum(bpos, n[:, None]), 0)
     fac_count = jnp.sum(boundary, axis=-1, dtype=jnp.int32)
     return fac_len, fac_count
+
+
+@partial(jax.jit, static_argnames=("L",))
+def windows_from_stream(stream, starts, lengths, *, L: int):
+    """``u8[B, L]`` window rows gathered on device from a flat byte stream:
+    row ``b`` is ``stream[starts[b] : starts[b] + lengths[b]]``, zero past
+    its length (the layout every ``[B, L]`` kernel here takes).  Callers
+    pad ``stream`` so that ``starts + L`` stays in range."""
+    iota = jax.lax.broadcasted_iota(jnp.int32, (starts.shape[0], L), 1)
+    rows = stream[starts.astype(jnp.int32)[:, None] + iota]
+    return jnp.where(iota < lengths.astype(jnp.int32)[:, None], rows, jnp.uint8(0))
 
 
 def encode_batch(windows, dtype=np.uint8):

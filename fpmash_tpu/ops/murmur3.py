@@ -1,11 +1,11 @@
 """Batched MurmurHash3_x64_128 on device.
 
-TPU-native reimplementation of the reference's hashing layer
+Batched reimplementation of the reference's hashing layer
 (mash/src/mash/MurmurHash3.cpp via hash.cpp:12-73): instead of hashing one
 k-mer / one fingerprint line at a time on a CPU thread, whole batches are
 hashed as uint64 lane arithmetic under ``jit`` — rotates, xors and 64-bit
-multiplies vectorize on the VPU, and the sequential dimension (16-byte
-blocks) is a ``lax.scan`` of length ``ceil(L/2)`` only.
+multiplies vectorize, and the sequential dimension (16-byte blocks) is a
+``lax.scan`` of length ``ceil(L/2)`` only.
 
 Variable lengths are handled with per-row masking: rows are zero-padded,
 full blocks are applied only while ``block < n_blocks(row)``, and the odd
@@ -23,14 +23,18 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
-_C1 = jnp.uint64(0x87C37B91114253D5)
-_C2 = jnp.uint64(0x4CF5AD432745937F)
-_F1 = jnp.uint64(0xFF51AFD7ED558CCD)
-_F2 = jnp.uint64(0xC4CEB9FE1A85EC53)
-_M5 = jnp.uint64(5)
-_A1 = jnp.uint64(0x52DCE729)
-_A2 = jnp.uint64(0x38495AB5)
+# NumPy scalars, not jnp: a jnp constant created while a trace is active
+# (this module may first be imported inside a jit) would be a tracer of
+# that trace and leak into every later use
+_C1 = np.uint64(0x87C37B91114253D5)
+_C2 = np.uint64(0x4CF5AD432745937F)
+_F1 = np.uint64(0xFF51AFD7ED558CCD)
+_F2 = np.uint64(0xC4CEB9FE1A85EC53)
+_M5 = np.uint64(5)
+_A1 = np.uint64(0x52DCE729)
+_A2 = np.uint64(0x38495AB5)
 
 
 def _rotl64(x, r: int):

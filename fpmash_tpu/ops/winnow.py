@@ -1,6 +1,6 @@
 """Windowed min-hash ("minmer") selection — batched device kernel.
 
-TPU-native replacement for the reference's incremental sliding-window
+Batched device replacement for the reference's incremental sliding-window
 structure (``getMinHashPositions``, Sketch.cpp:737-1047).  The incremental
 map/deque algorithm is inherently serial; property testing (see
 ``tests/test_winnow.py``) shows it is exactly equivalent to this
@@ -17,8 +17,8 @@ The kernel processes window starts in fixed-size chunks: gather the
 ``[C, ws]`` window matrix, sort each row, take the ``mins``-th distinct
 value as the row threshold, test each entry against the threshold and
 against its previous-occurrence index (first-in-window test), and
-scatter-OR the qualifying flags back to position space.  Sorting rides the
-TPU's vectorized sort; every shape is static.
+scatter-OR the qualifying flags back to position space.  Every shape is
+static.
 """
 
 from __future__ import annotations

@@ -24,6 +24,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
@@ -32,7 +33,7 @@ from fpmash_tpu.ops.lyndon import cfl_lengths_onehot as cfl_lengths
 from fpmash_tpu.ops.murmur3 import murmur3_u64_batch
 from fpmash_tpu.parallel.mesh import default_mesh
 
-_U64MAX = jnp.uint64(0xFFFFFFFFFFFFFFFF)
+_U64MAX = np.uint64(0xFFFFFFFFFFFFFFFF)  # NumPy: no jnp work at import
 
 
 def visible_device_count() -> int:
@@ -52,22 +53,25 @@ def visible_device_count() -> int:
     return n
 
 
-def shard_rows(fn, arrays):
-    """Run ``fn(*arrays)`` data-parallel over the visible devices, sharding
-    every input and output along its leading (row) axis.
+def shard_rows(fn, arrays, replicated=()):
+    """Run ``fn(*arrays, *replicated)`` data-parallel over the visible
+    devices, sharding every ``arrays`` input and every output along its
+    leading (row) axis; ``replicated`` inputs go whole to every device.
 
-    The inputs share a common leading dimension ``B``; it is padded up to a
-    multiple of the device count (the row kernels treat zero rows as empty
-    — same convention as the over-allocated batch tails), ``fn`` runs under
-    ``shard_map`` on a 1-D ``dp`` mesh with no cross-device traffic, and the
-    outputs are sliced back to ``B`` rows.  With one visible device this is
-    exactly ``fn(*arrays)``.  Results are bitwise identical to the
-    single-device run because the computation is row-independent.
+    The row inputs share a common leading dimension ``B``; it is padded up
+    to a multiple of the device count (the row kernels treat zero rows as
+    empty — same convention as the over-allocated batch tails), ``fn`` runs
+    under ``shard_map`` on a 1-D ``dp`` mesh with no cross-device traffic,
+    and the outputs are sliced back to ``B`` rows.  With one visible device
+    this is exactly ``fn(*arrays, *replicated)``.  Results are bitwise
+    identical to the single-device run because the computation is
+    row-independent.
     """
     D = visible_device_count()
     arrays = [jnp.asarray(a) for a in arrays]
+    replicated = [jnp.asarray(a) for a in replicated]
     if D <= 1:
-        return fn(*arrays)
+        return fn(*arrays, *replicated)
     B = arrays[0].shape[0]
     Bp = -(-B // D) * D
     padded = []
@@ -76,18 +80,19 @@ def shard_rows(fn, arrays):
             pad = [(0, Bp - a.shape[0])] + [(0, 0)] * (a.ndim - 1)
             a = jnp.pad(a, pad)
         padded.append(a)
-    out_tree = jax.eval_shape(fn, *padded)
+    out_tree = jax.eval_shape(fn, *padded, *replicated)
     mesh = default_mesh(D)
     sm = shard_map(
         fn,
         mesh=mesh,
-        in_specs=tuple(P("dp", *([None] * (a.ndim - 1))) for a in padded),
+        in_specs=tuple(P("dp", *([None] * (a.ndim - 1))) for a in padded)
+        + tuple(P() for _ in replicated),
         out_specs=jax.tree.map(
             lambda l: P("dp", *([None] * (l.ndim - 1))), out_tree
         ),
         check_vma=False,
     )
-    outs = sm(*padded)
+    outs = sm(*padded, *replicated)
     return jax.tree.map(lambda o: o[:B], outs)
 
 
@@ -118,9 +123,8 @@ def _local_bottom_k(hashes, valid, s: int):
     x = jnp.sort(x)
     is_start = jnp.concatenate([jnp.array([True]), x[1:] != x[:-1]])
     is_start = is_start & (x != _U64MAX)
-    # selection by pad-and-resort, NOT jnp.nonzero (its bincount-scatter
-    # lowering is near-serial on TPU — see ops/bottomk._select_first_s);
-    # the deduped values form the ascending prefix of the second sort
+    # selection by pad-and-resort (see ops/bottomk._select_first_s): the
+    # deduped values form the ascending prefix of the second sort
     x2 = jnp.sort(jnp.where(is_start, x, _U64MAX))
     if x2.shape[0] < s:  # tiny shards (dry-run shapes) still emit s slots
         x2 = jnp.concatenate([x2, jnp.full((s - x2.shape[0],), _U64MAX)])
@@ -156,10 +160,8 @@ from functools import lru_cache
 
 @lru_cache(maxsize=None)
 def _sharded_all_pairs_fn(mesh: Mesh, sketch_size: int):
-    from fpmash_tpu.ops.compare import tile_common_denom
-
     def shard_fn(r, rl, q, ql):
-        return tile_common_denom(r, rl, q, ql, sketch_size=sketch_size)
+        return pairwise_common_denom(r, rl, q, ql, sketch_size=sketch_size)
 
     return jax.jit(
         shard_map(
@@ -184,14 +186,11 @@ def sharded_all_pairs(mesh: Mesh, ref, ref_len, qry, qry_len, sketch_size: int):
 
 
 @lru_cache(maxsize=None)
-def _sharded_all_pairs_walk_fn(mesh: Mesh, sketch_size: int,
-                               max_steps: int | None):
-    from fpmash_tpu.ops.walk import tile_walk_common_denom
+def _sharded_all_pairs_walk_fn(mesh: Mesh, sketch_size: int):
+    from fpmash_tpu.ops.walk import pairwise_walk_common_denom
 
     def shard_fn(r, rl, q, ql):
-        return tile_walk_common_denom(
-            r, rl, q, ql, sketch_size=sketch_size, max_steps=max_steps
-        )
+        return pairwise_walk_common_denom(r, rl, q, ql, sketch_size=sketch_size)
 
     return jax.jit(
         shard_map(
@@ -205,13 +204,10 @@ def _sharded_all_pairs_walk_fn(mesh: Mesh, sketch_size: int,
 
 
 def sharded_all_pairs_walk(mesh: Mesh, ref, ref_len, qry, qry_len,
-                           sketch_size: int, max_steps: int | None = None):
+                           sketch_size: int):
     """Order-dependent walk (unsorted fingerprint lists) with queries
-    sharded over dp — same layout as :func:`sharded_all_pairs`.
-    ``max_steps`` bounds the walk trip count from the TRUE max list
-    lengths (without it the padded lane width over-steps short lists by
-    up to ~10x — same fix as the single-device path, commit 57ddeaa)."""
-    return _sharded_all_pairs_walk_fn(mesh, sketch_size, max_steps)(
+    sharded over dp — same layout as :func:`sharded_all_pairs`."""
+    return _sharded_all_pairs_walk_fn(mesh, sketch_size)(
         ref, ref_len, qry, qry_len
     )
 

@@ -1,6 +1,6 @@
 """Scalar (pure-Python/NumPy) parity models.
 
-Every TPU kernel in :mod:`fpmash_tpu.ops` is validated against these scalar
+Every device kernel in :mod:`fpmash_tpu.ops` is validated against these scalar
 models, which in turn are validated bit-for-bit against the reference repo's
 golden fixtures (tests/golden). They are also used directly on the host for
 tiny inputs where device dispatch isn't worth it.

@@ -37,20 +37,3 @@ def trace(stage: str, **extra):
 def log(msg: str) -> None:
     if _ENABLED:
         print(f"[fpmash] {msg}", file=sys.stderr)
-
-
-_warned: set[str] = set()
-
-
-def warn(msg: str) -> None:
-    """Always-on, once-per-message stderr warning.
-
-    Used by device-route dispatchers when a production kernel is demoted
-    to a slower fallback (e.g. a Mosaic compile regression): a silent
-    demotion would pass every correctness test while quietly losing an
-    order of magnitude of throughput, so fallbacks must be loud even
-    without FPMASH_TRACE.
-    """
-    if msg not in _warned:
-        _warned.add(msg)
-        print(f"[fpmash] WARNING: {msg}", file=sys.stderr)

@@ -1,6 +1,6 @@
 // fpio — native fast-path IO for fpmash_tpu.
 //
-// TPU-native equivalent of the reference's C++ host-side IO: the
+// Native host-side equivalent of the reference's C++ host-side IO: the
 // fingerprint .txt parser (Sketch::initFromFingerprints' getline/
 // istringstream loop, Sketch.cpp:82-100) and a kseq-style streaming
 // FASTA/FASTQ reader (kseq.h) — rebuilt clean-room as batch parsers that

@@ -75,7 +75,7 @@ def test_reverse_complement():
     assert reverse_complement("N") == "N"
 
 
-@pytest.mark.parametrize("kernel", ["scan", "sa", "onehot", "cmp", "pallas"])
+@pytest.mark.parametrize("kernel", ["scan", "sa", "onehot", "cmp"])
 def test_device_duval_matches_scalar(kernel):
     import jax
     import jax.numpy as jnp
@@ -86,14 +86,7 @@ def test_device_duval_matches_scalar(kernel):
     words = ["".join(random.choice("ACGT") for _ in range(random.randint(1, 120))) for _ in range(150)]
     words += ["A" * 100, "ACGT" * 25, "T" * 7 + "A", "A", "TTTT", "CAAAAAAB", "BANANA"]
     arr, lens = lyn.encode_batch(words)
-    if kernel == "pallas":
-        from fpmash_tpu.ops.lyndon_pallas import cfl_lengths_pallas
-
-        fl, fc = jax.device_get(
-            cfl_lengths_pallas(jnp.asarray(arr), jnp.asarray(lens), interpret=True)
-        )
-    else:
-        fn = {"scan": lyn.cfl_lengths, "sa": lyn.cfl_lengths_sa, "onehot": lyn.cfl_lengths_onehot, "cmp": lyn.cfl_lengths_cmp}[kernel]
-        fl, fc = jax.device_get(fn(jnp.asarray(arr), jnp.asarray(lens)))
+    fn = {"scan": lyn.cfl_lengths, "sa": lyn.cfl_lengths_sa, "onehot": lyn.cfl_lengths_onehot, "cmp": lyn.cfl_lengths_cmp}[kernel]
+    fl, fc = jax.device_get(fn(jnp.asarray(arr), jnp.asarray(lens)))
     for i, w in enumerate(words):
         assert list(map(int, fl[i, : fc[i]])) == [len(f) for f in cfl(w)], w

@@ -143,30 +143,3 @@ def test_sharded_step_collective_counts_d_independent():
         assert f._cache_size() == size_before, f"warm step recompiled at D={D}"
     assert counts[2] == counts[4] == counts[8], counts
     assert sum(counts[8].values()) > 0, "no collectives found in the step"
-
-
-@pytest.mark.slow
-def test_virtual_mesh_total_throughput_floor():
-    """Scaling proxy (SCALING.md): on an 8-virtual-device CPU mesh the
-    per-device efficiency is ~1/D by construction (shared cores), but
-    TOTAL throughput must not collapse — D * eff >= 0.3 catches per-step
-    recompiles, serialized collectives, and D-proportional dispatch
-    overhead, which are the failure modes a virtual mesh can detect."""
-    import sys
-    from pathlib import Path
-
-    import jax
-
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "scripts"))
-    try:
-        from exp_scaling import bench_fingerprint
-    finally:
-        sys.path.pop(0)
-
-    from fpmash_tpu.parallel.mesh import default_mesh
-
-    if len(jax.devices()) < 8:
-        pytest.skip("needs 8 virtual devices")
-    base = bench_fingerprint(default_mesh(1), 2048, 100, 2)
-    wide = bench_fingerprint(default_mesh(8), 2048, 100, 2)
-    assert wide / base >= 0.3  # == 8 * scaling_eff

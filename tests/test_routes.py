@@ -1,14 +1,14 @@
-"""Device-route selection guards.
+"""Device-route selection: one platform rule (``fpmash_tpu.route``), and
+each route it picks checked against the CPU route or the host models.
 
-A Mosaic regression must never silently demote the production Pallas
-kernels to their slower XLA fallbacks: the dispatchers now warn loudly
-(utils/trace.warn, always-on) and these tests assert, with a mocked TPU
-backend, that (a) the Pallas route is actually SELECTED on a TPU backend
-and (b) a failing Pallas kernel produces one warning plus a correct
-fallback result.
+The CPU suite cannot compile for the GPU, so the GPU routes are driven
+here with the route rule patched to ``gpu`` and the Triton kernel in
+interpret mode; ``chip_smoke.py`` runs them compiled on the card.
 """
 
 from __future__ import annotations
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -16,282 +16,156 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-
-@pytest.fixture(autouse=True)
-def _fresh_caches(monkeypatch):
-    """Mocked kernels must not leak into jit caches, nor warn dedup across
-    tests."""
-    from fpmash_tpu.utils import trace
-
-    monkeypatch.setattr(trace, "_warned", set())
-    yield
-    jax.clear_caches()
+from fpmash_tpu import route
 
 
-def _mock_tpu(monkeypatch):
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+@pytest.mark.parametrize(
+    "op, cpu, gpu",
+    [
+        ("cfl_kernel", "xla", "triton"),
+        ("chunk_bases", 1 << 15, 1 << 22),
+        ("compare_tile", 128, 256),
+    ],
+)
+def test_route_rule_per_platform(op, cpu, gpu):
+    fn = getattr(route, op)
+    assert fn("cpu") == cpu
+    assert fn("gpu") == gpu
 
 
-def test_kmer_route_selects_pallas_on_tpu(monkeypatch):
-    from fpmash_tpu.ops import kmers_pallas
-    from fpmash_tpu.ops.kmers import encode_seq, kmer_hashes
-
-    _mock_tpu(monkeypatch)
-    calls = []
-
-    def fake(codes, *, k, noncanonical, seed):
-        calls.append(k)
-        return jnp.zeros(codes.shape, jnp.uint64), jnp.ones(codes.shape, bool)
-
-    monkeypatch.setattr(kmers_pallas, "kmer_hashes_slab_pallas", fake)
-    seq = jnp.asarray(encode_seq("ACGT" * 64))
-    kmer_hashes(seq, jnp.int32(256), k=21, seed=42)
-    assert calls == [21], "TPU backend did not select the pallas kmer tail"
+@pytest.mark.parametrize(
+    "op", ["platform", "cfl_kernel", "chunk_bases", "compare_tile"]
+)
+def test_route_rule_rejects_unknown_platform(op):
+    with pytest.raises(RuntimeError, match="unsupported JAX platform"):
+        getattr(route, op)("metal")
 
 
-def test_kmer_route_fallback_warns_and_is_correct(monkeypatch, capsys):
-    from fpmash_tpu.ops import kmers_pallas
-    from fpmash_tpu.ops.kmers import encode_seq, kmer_hashes
-
-    seq = jnp.asarray(encode_seq("ACGTTGCA" * 32))
-    ln = jnp.int32(256)
-    expect_h, expect_v = kmer_hashes(seq, ln, k=21, seed=42)  # cpu: XLA route
-
-    _mock_tpu(monkeypatch)
-
-    def broken(codes, *, k, noncanonical, seed):
-        raise ValueError("simulated Mosaic regression")
-
-    monkeypatch.setattr(kmers_pallas, "kmer_hashes_slab_pallas", broken)
-    h, v = kmer_hashes(seq, ln, k=21, seed=42)
-    err = capsys.readouterr().err
-    assert "WARNING" in err and "falling back" in err
-    assert np.array_equal(np.asarray(h), np.asarray(expect_h))
-    assert np.array_equal(np.asarray(v), np.asarray(expect_v))
+def test_route_rule_reads_the_active_backend():
+    assert route.platform() == "cpu"
+    assert route.cfl_kernel() == "xla"
 
 
-def _mk_reads(n=3, L=120, seed=0):
-    rng = np.random.default_rng(seed)
-    lut = np.array(list("ACGT"))
-    return [(f"r{i} ", "".join(rng.choice(lut, L))) for i in range(n)]
-
-
-def test_sketch_cfl_route_selects_fused_pallas_on_tpu(monkeypatch):
-    from fpmash_tpu.models.sketch import Sketch, SketchParams
-    from fpmash_tpu.ops import fused_pallas
-    from fpmash_tpu.ops.lyndon import cfl_lengths_onehot
-    from fpmash_tpu.ops.murmur3 import murmur3_u64_batch
-
-    _mock_tpu(monkeypatch)
-    calls = []
-
-    def fake(batch, lengths, *, seed, pack):
-        calls.append(pack)
-        fl, fc = cfl_lengths_onehot(batch, lengths)
-        h1, _ = murmur3_u64_batch(fl.astype(jnp.uint64), fc, seed=seed)
-        return h1, h1, fc
-
-    monkeypatch.setattr(fused_pallas, "fingerprint_hashes_fused", fake)
-    sk = Sketch(SketchParams().for_fingerprint())
-    sk.init_from_reads_fingerprint(_mk_reads(), factorization="CFL")
-    assert calls and calls[0] == "dna16", (
-        "TPU backend did not select the fused Duval pallas kernel"
+def test_default_backend_is_read_in_one_module():
+    """No other module makes the platform decision itself."""
+    root = pathlib.Path(route.__file__).parent
+    readers = sorted(
+        str(p.relative_to(root))
+        for p in root.rglob("*.py")
+        if "default_backend" in p.read_text()
     )
-    assert len(sk.references) == 3
+    assert readers == ["route.py"]
 
 
-def test_sketch_cfl_route_fallback_warns_and_is_correct(monkeypatch, capsys):
-    from fpmash_tpu.models.sketch import Sketch, SketchParams
+def _gpu_cfl_route(monkeypatch):
+    """Patch the route rule to the GPU's CFL choice and run the Triton
+    kernel interpreted; returns the list of kernel calls."""
     from fpmash_tpu.ops import fused_pallas
 
-    sk0 = Sketch(SketchParams().for_fingerprint())
-    sk0.init_from_reads_fingerprint(_mk_reads(), factorization="CFL")
-
-    _mock_tpu(monkeypatch)
-
-    def broken(batch, lengths, *, seed, pack):
-        raise ValueError("simulated Mosaic regression")
-
-    monkeypatch.setattr(fused_pallas, "fingerprint_hashes_fused", broken)
-    sk = Sketch(SketchParams().for_fingerprint())
-    sk.init_from_reads_fingerprint(_mk_reads(), factorization="CFL")
-    err = capsys.readouterr().err
-    assert "WARNING" in err and "falling back" in err
-    for a, b in zip(sk0.references, sk.references):
-        assert np.array_equal(a.hashes, b.hashes)
-
-
-def test_sketch_icfl_route_selects_fused_pallas_on_tpu(monkeypatch):
-    from fpmash_tpu.models.sketch import Sketch, SketchParams
-    from fpmash_tpu.ops import icfl_pallas
-    from fpmash_tpu.ops.factorize import factor_lengths_device
-    from fpmash_tpu.ops.murmur3 import murmur3_u64_batch
-
-    _mock_tpu(monkeypatch)
     calls = []
-
-    def fake(batch, lengths, *, family, seed, pack):
-        calls.append(family)
-        fl, fc, ok = factor_lengths_device(batch, lengths, family, True)
-        h1, _ = murmur3_u64_batch(fl.astype(jnp.uint64), fc, seed=seed)
-        return h1, h1, fc, ok
-
-    monkeypatch.setattr(icfl_pallas, "icfl_family_hashes_fused", fake)
-    sk = Sketch(SketchParams().for_fingerprint())
-    sk.init_from_reads_fingerprint(_mk_reads(), factorization="ICFL_COMB")
-    assert calls and set(calls) == {"ICFL_COMB"}, (
-        "TPU backend did not select the fused ICFL pallas pipeline"
-    )
-
-
-def test_compare_route_fallback_warns(monkeypatch, capsys):
-    from fpmash_tpu.ops import compare_pallas
-    from fpmash_tpu.ops.compare import pairwise_common_denom, tile_common_denom
-
-    _mock_tpu(monkeypatch)
-
-    def broken(*a, **kw):
-        raise ValueError("simulated Mosaic regression")
-
-    monkeypatch.setattr(compare_pallas, "pairwise_common_denom_pallas", broken)
-    rng = np.random.default_rng(1)
-    S = 32
-    ref = jnp.asarray(np.sort(rng.integers(0, 1 << 40, (8, S), np.uint64), axis=1))
-    qry = jnp.asarray(np.sort(rng.integers(0, 1 << 40, (8, S), np.uint64), axis=1))
-    rl = jnp.full((8,), S, jnp.int32)
-    c, d = tile_common_denom(ref, rl, qry, rl, sketch_size=S)
-    err = capsys.readouterr().err
-    assert "WARNING" in err and "falling back" in err
-    c2, d2 = pairwise_common_denom(ref, rl, qry, rl, sketch_size=S)
-    assert np.array_equal(np.asarray(c), np.asarray(c2))
-    assert np.array_equal(np.asarray(d), np.asarray(d2))
-
-
-def test_compare_route_selects_pallas_on_tpu(monkeypatch):
-    from fpmash_tpu.ops import compare_pallas
-    from fpmash_tpu.ops.compare import pairwise_common_denom, tile_common_denom
-
-    _mock_tpu(monkeypatch)
-    calls = []
-
-    def fake(ref, rl, qry, ql, *, sketch_size):
-        calls.append(sketch_size)
-        return pairwise_common_denom(ref, rl, qry, ql, sketch_size=sketch_size)
-
-    monkeypatch.setattr(compare_pallas, "pairwise_common_denom_pallas", fake)
-    rng = np.random.default_rng(2)
-    S = 32
-    ref = jnp.asarray(np.sort(rng.integers(0, 1 << 40, (8, S), np.uint64), axis=1))
-    rl = jnp.full((8,), S, jnp.int32)
-    tile_common_denom(ref, rl, ref, rl, sketch_size=S)
-    assert calls == [S], "TPU backend did not select the pallas compare tile"
-
-
-def test_direct_fp_flat_stream_route(monkeypatch):
-    """On a TPU backend, eligible --direct-fp input (CFL, shift, pure
-    DNA, all reads >= 100) takes the flat-stream route (reads shipped
-    once + device window-word gather) and its sketches are bit-identical
-    to the CPU XLA pipeline's."""
-    import functools
-
-    from fpmash_tpu.models.sketch import Sketch, SketchParams
-    from fpmash_tpu.ops import fused_pallas as fp
-
-    rng = np.random.default_rng(31)
-    reads = [
-        (f"r{i}", "".join("ACGT"[c] for c in rng.integers(0, 4, size=n)))
-        for i, n in enumerate((120, 215, 101))
-    ]
-    ref = Sketch(SketchParams().for_fingerprint())
-    ref.init_from_reads_fingerprint(list(reads), "CFL", shift=True)
-
-    monkeypatch.setenv("FPMASH_DEVICES", "1")
-    _mock_tpu(monkeypatch)
-    calls = []
-    orig = fp.fingerprint_hashes_fused_words
+    orig = fused_pallas.fingerprint_hashes_stream
 
     def spy(*a, **kw):
-        calls.append(kw.get("full64"))
+        calls.append(kw["L"])
         return orig(*a, **{**kw, "interpret": True})
 
-    monkeypatch.setattr(fp, "fingerprint_hashes_fused_words", spy)
-    got = Sketch(SketchParams().for_fingerprint())
-    got.init_from_reads_fingerprint(list(reads), "CFL", shift=True)
+    monkeypatch.setattr(route, "cfl_kernel", lambda name=None: "triton")
+    monkeypatch.setattr(fused_pallas, "fingerprint_hashes_stream", spy)
+    return calls
 
-    assert calls == [False], "flat-stream route not taken on TPU backend"
-    assert len(got.references) == len(ref.references)
-    for a, b in zip(got.references, ref.references):
+
+def _reads(lengths, seed):
+    rng = np.random.default_rng(seed)
+    return [
+        (f"r{i}", "".join("ACGT"[c] for c in rng.integers(0, 4, size=n)))
+        for i, n in enumerate(lengths)
+    ]
+
+
+def _sketch_fp(reads, shift=True, family="CFL"):
+    from fpmash_tpu.models.sketch import Sketch, SketchParams
+
+    sk = Sketch(SketchParams().for_fingerprint())
+    sk.init_from_reads_fingerprint(list(reads), family, shift=shift)
+    return sk
+
+
+def _assert_same_sketch(got, want):
+    assert len(got.references) == len(want.references)
+    for a, b in zip(got.references, want.references):
         assert a.name == b.name and a.length == b.length
         assert np.array_equal(
             np.asarray(a.hashes, np.uint64), np.asarray(b.hashes, np.uint64)
         )
 
 
-def test_direct_fp_flat_stream_skips_short_reads(monkeypatch):
-    """A read shorter than the 100-base shift window (incl. zero-length)
-    contributes a batch row but zero/misaligned `starts` entries, which
-    would shift every later read's gathered window — the flat-stream
-    route must NOT be taken for such inputs, and the fallback must still
-    be bit-identical to the CPU pipeline."""
-    from fpmash_tpu.models.sketch import Sketch, SketchParams
-    from fpmash_tpu.ops import fused_pallas as fp
+@pytest.mark.parametrize("shift", [True, False])
+def test_sketch_cfl_gpu_route_matches_cpu_route(monkeypatch, shift):
+    """On the GPU route, --direct-fp CFL goes through the Triton kernel and
+    is bit-identical to the CPU route (XLA Duval + murmur)."""
+    reads = _reads((120, 215, 101), seed=31)
+    want = _sketch_fp(reads, shift=shift)
+    monkeypatch.setenv("FPMASH_DEVICES", "1")
+    calls = _gpu_cfl_route(monkeypatch)
+    got = _sketch_fp(reads, shift=shift)
+    assert calls == [100 if shift else 215], "Triton route not taken"
+    _assert_same_sketch(got, want)
 
-    rng = np.random.default_rng(33)
-    for short_len in (0, 50):
-        reads = [
-            (f"r{i}", "".join("ACGT"[c] for c in rng.integers(0, 4, size=n)))
-            for i, n in enumerate((120, short_len, 101))
-        ]
-        ref = Sketch(SketchParams().for_fingerprint())
-        ref.init_from_reads_fingerprint(list(reads), "CFL", shift=True)
 
-        monkeypatch.setenv("FPMASH_DEVICES", "1")
-        _mock_tpu(monkeypatch)
-        calls = []
-        monkeypatch.setattr(
-            fp,
-            "fingerprint_hashes_fused_words",
-            lambda *a, **kw: calls.append(1),
-        )
-        got = Sketch(SketchParams().for_fingerprint())
-        got.init_from_reads_fingerprint(list(reads), "CFL", shift=True)
-        assert not calls, "flat-stream route taken despite a short read"
-        assert len(got.references) == len(ref.references)
-        for a, b in zip(got.references, ref.references):
-            assert a.name == b.name and a.length == b.length
-            assert np.array_equal(
-                np.asarray(a.hashes, np.uint64), np.asarray(b.hashes, np.uint64)
-            )
+def test_sketch_cfl_gpu_route_short_and_empty_reads(monkeypatch):
+    """Reads shorter than the 100-base shift window (incl. zero-length)
+    are one row each, addressed in the same stream as the full reads."""
+    reads = _reads((120, 0, 50, 101, 7), seed=33)
+    want = _sketch_fp(reads)
+    monkeypatch.setenv("FPMASH_DEVICES", "1")
+    calls = _gpu_cfl_route(monkeypatch)
+    got = _sketch_fp(reads)
+    assert calls, "Triton route not taken"
+    _assert_same_sketch(got, want)
+
+
+def test_sketch_cfl_gpu_route_too_wide_rows_use_xla(monkeypatch):
+    """Rows wider than the kernel's MAX_L take the XLA route."""
+    from fpmash_tpu.ops.fused_pallas import MAX_L
+
+    reads = _reads((MAX_L + 40, 90), seed=35)
+    want = _sketch_fp(reads, shift=False)
+    monkeypatch.setenv("FPMASH_DEVICES", "1")
+    calls = _gpu_cfl_route(monkeypatch)
+    got = _sketch_fp(reads, shift=False)
+    assert not calls
+    _assert_same_sketch(got, want)
+
+
+def test_sketch_cfl_gpu_route_multidevice(monkeypatch):
+    """With several devices the kernel runs under shard_map (window rows
+    sharded, the read stream replicated), bit-identical to one device."""
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 virtual devices")
+    reads = _reads((130, 140, 100, 0), seed=37)
+    want = _sketch_fp(reads)
+    monkeypatch.setenv("FPMASH_DEVICES", "8")
+    calls = _gpu_cfl_route(monkeypatch)
+    got = _sketch_fp(reads)
+    assert calls
+    _assert_same_sketch(got, want)
 
 
 def test_classic_direct_route_multichunk(monkeypatch):
     """The fused direct classic route (chunked classic_sketch_device +
     host-side bottom-k merge) produces the identical sketch to the pool
     path, including across chunk boundaries and with duplicate k-mers."""
-    import functools
-
     from fpmash_tpu.models import sketch as sk
-    from fpmash_tpu.ops import kmers_pallas as kp
+    from fpmash_tpu.ops.bottomk import bottom_k_host
 
     rng = np.random.default_rng(41)
     seq = "".join("ACGT"[c] for c in rng.integers(0, 4, size=20000))
     seq = seq[:5000] + seq[:5000] + seq[10000:]  # duplicated region
     p = sk.SketchParams(kmer_size=21, sketch_size=64)
-
-    want = sk._kmer_hash_pool([seq], p, "auto")
-    from fpmash_tpu.ops.bottomk import bottom_k_host
-
-    wv, wc = bottom_k_host(want, 64)
+    wv, wc = bottom_k_host(sk._kmer_hash_pool([seq], p, "auto"), 64)
 
     monkeypatch.setenv("FPMASH_DEVICES", "1")
-    _mock_tpu(monkeypatch)
     monkeypatch.setattr(sk, "_DIRECT_CHUNK", 8192)  # forces 3+ chunks
-    orig = kp.kmer_hashes_packed_masked_planes
-    monkeypatch.setattr(
-        kp,
-        "kmer_hashes_packed_masked_planes",
-        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}),
-    )
     got = sk._classic_sketch_direct([seq], p, "auto")
     assert got is not None, "direct route not taken"
     gv, gc = got
@@ -317,56 +191,15 @@ def test_classic_direct_route_multichunk(monkeypatch):
     assert np.array_equal(gc2.astype(np.uint32), wc)
 
 
-def test_classic_topk_route_selected(monkeypatch):
-    """Above the 2048*s density gate the classic device sketch must trace
-    through the in-kernel top-8 compaction kernel (a Mosaic regression
-    silently demoting it to the masked kernel would cost ~3x)."""
-    import jax.numpy as jnp
-
-    from fpmash_tpu.ops import kmers_pallas as kp
-    from fpmash_tpu.ops.kmers import classic_sketch_device
-
-    calls = []
-    orig = kp.kmer_hashes_packed_topk8r_planes
-    monkeypatch.setattr(
-        kp,
-        "kmer_hashes_packed_topk8r_planes",
-        lambda *a, **kw: calls.append(1) or orig(*a, **{**kw, "interpret": True}),
-    )
-    orig_m = kp.kmer_hashes_packed_masked_planes
-    monkeypatch.setattr(
-        kp,
-        "kmer_hashes_packed_masked_planes",
-        lambda *a, **kw: orig_m(*a, **{**kw, "interpret": True}),
-    )
-    rng = np.random.default_rng(3)
-    lut = np.frombuffer(b"ACGT", np.uint8)
-    seq = jnp.asarray(lut[rng.integers(0, 4, size=1 << 16)])
-    classic_sketch_device(seq, jnp.int32(1 << 16), k=21, s=16, seed=43)
-    assert calls, "topk kernel not selected above the density gate"
-    # below the gate (s too large for N): masked route, no topk call
-    calls.clear()
-    classic_sketch_device(seq, jnp.int32(1 << 16), k=21, s=512, seed=43)
-    assert not calls, "topk kernel selected below the density gate"
-
-
 def test_direct_reads_mode_route_multichunk(monkeypatch):
     """min_cov=2 reads-mode direct route (collect-all chunks + merged
     counts + post-merge filter) == the exact pool path, including values
     whose copies are split across chunk boundaries."""
     from fpmash_tpu.models import sketch as sk
-    from fpmash_tpu.ops import kmers_pallas as kp
     from fpmash_tpu.ops.bottomk import bottom_k_host
 
     monkeypatch.setenv("FPMASH_DEVICES", "1")
-    _mock_tpu(monkeypatch)
     monkeypatch.setattr(sk, "_DIRECT_CHUNK", 8192)
-    orig = kp.kmer_hashes_packed_masked_planes
-    monkeypatch.setattr(
-        kp,
-        "kmer_hashes_packed_masked_planes",
-        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}),
-    )
     rng = np.random.default_rng(47)
     base = "".join("ACGT"[c] for c in rng.integers(0, 4, size=9000))
     # copies of the first 9k land in chunks 0/1 and 2/3: min_cov=2
@@ -403,30 +236,15 @@ def test_direct_reads_mode_route_multichunk(monkeypatch):
 
 
 def test_classic_direct_route_tail_sliver_and_chunk_fallback(monkeypatch):
-    """Round-5 two-phase dispatch: (a) a tail sliver shorter than k is
-    skipped without sinking the route; (b) a chunk that fails the boost
-    ladder (here: nearly all-N) falls back to an exact pool pass over
-    just that chunk instead of abandoning all completed chunk work."""
+    """Two-phase dispatch: (a) a tail sliver shorter than k is skipped
+    without sinking the route; (b) a chunk that fails the boost ladder
+    (here: nearly all-N) falls back to an exact pool pass over just that
+    chunk instead of abandoning all completed chunk work."""
     from fpmash_tpu.models import sketch as sk
-    from fpmash_tpu.ops import kmers_pallas as kp
     from fpmash_tpu.ops.bottomk import bottom_k_host
 
     monkeypatch.setenv("FPMASH_DEVICES", "1")
-    _mock_tpu(monkeypatch)
     monkeypatch.setattr(sk, "_DIRECT_CHUNK", 8192)
-    orig = kp.kmer_hashes_packed_masked_planes
-    monkeypatch.setattr(
-        kp,
-        "kmer_hashes_packed_masked_planes",
-        lambda *a, **kw: orig(*a, **{**kw, "interpret": True}),
-    )
-    # the slab (non-masked) kernel backs the kmer_hashes fallback pass
-    orig2 = kp.kmer_hashes_slab_pallas
-    monkeypatch.setattr(
-        kp,
-        "kmer_hashes_slab_pallas",
-        lambda *a, **kw: orig2(*a, **{**kw, "interpret": True}),
-    )
     rng = np.random.default_rng(43)
     step = 8192 - 20
     # chunk 0 random, chunk 1 nearly all N (fails the ladder), tail
@@ -448,17 +266,9 @@ def test_classic_direct_route_all_invalid(monkeypatch):
     """An all-N sequence (no valid windows) must not crash the direct
     route's merge (saturated-empty chunks return ok with 0 candidates)."""
     from fpmash_tpu.models import sketch as sk
-    from fpmash_tpu.ops import kmers_pallas as kp
 
     monkeypatch.setenv("FPMASH_DEVICES", "1")
-    _mock_tpu(monkeypatch)
     monkeypatch.setattr(sk, "_DIRECT_CHUNK", 8192)
-    for name in ("kmer_hashes_packed_masked_planes",):
-        orig = getattr(kp, name)
-        monkeypatch.setattr(
-            kp, name,
-            lambda *a, _o=orig, **kw: _o(*a, **{**kw, "interpret": True}),
-        )
     p = sk.SketchParams(kmer_size=21, sketch_size=64)
     got = sk._classic_sketch_direct(["N" * 20000], p, "auto")
     if got is not None:  # either outcome valid; must not raise
@@ -466,20 +276,14 @@ def test_classic_direct_route_all_invalid(monkeypatch):
         assert len(gv) == 0
 
 
-def test_screen_distinct_counts_device_route(monkeypatch):
+@pytest.mark.parametrize("k", [21, 15])
+def test_screen_distinct_counts_device_route(k):
     """screen's query-side distinct counting on device (sort + run-length
     + prefix download) == host np.unique over the pool, incl. duplicates,
-    invalid characters, record separators, and the 32-bit-hash collapse."""
+    invalid characters, record separators, and (k=15: 32-bit hashes) the
+    collapse of the high hash word."""
     from fpmash_tpu.models import sketch as sk
-    from fpmash_tpu.ops import kmers_pallas as kp
 
-    _mock_tpu(monkeypatch)
-    for name in ("kmer_hashes_packed_pallas_planes", "kmer_hashes_slab_pallas_planes"):
-        orig = getattr(kp, name)
-        monkeypatch.setattr(
-            kp, name,
-            lambda *a, _o=orig, **kw: _o(*a, **{**kw, "interpret": True}),
-        )
     rng = np.random.default_rng(53)
     chars = np.array(list("ACGTN"))
     seqs = [
@@ -487,21 +291,20 @@ def test_screen_distinct_counts_device_route(monkeypatch):
         "".join(rng.choice(chars, 30000, p=[0.25] * 4 + [0.0])),
     ]
     seqs.append(seqs[1][:20000])  # heavy duplication across records
-    p = sk.SketchParams(kmer_size=21)
+    p = sk.SketchParams(kmer_size=k)
+    assert p.use64 == (k > 16)
     want_v, want_c = np.unique(
         np.asarray(sk._kmer_hash_pool(seqs, p, "auto"), np.uint64),
         return_counts=True,
     )
-    got_v, got_c = sk._kmer_distinct_counts_device(seqs, p)
+    got_v, got_c = sk._kmer_distinct_counts(seqs, p, "auto")
     assert np.array_equal(got_v, want_v)
     assert np.array_equal(got_c.astype(np.int64), want_c)
 
 
-def test_bottom_k_runtime_fallback_chain(monkeypatch, capsys):
-    """A runtime failure in the threshold kernel (the relay's
-    executable-shape trap surfaces this way) must fall through to the
-    full-sort kernel, and a failure there to the host model — same
-    values either way, with loud warnings."""
+def test_bottom_k_under_collection_falls_back_to_full_sort(monkeypatch):
+    """The threshold bottom-k's ``ok`` flag (a data condition: the filter
+    under-collected) sends the pool to the exact full-sort kernel."""
     from fpmash_tpu.models import sketch as sk
     from fpmash_tpu.ops import bottomk as bk
 
@@ -510,16 +313,28 @@ def test_bottom_k_runtime_fallback_chain(monkeypatch, capsys):
     pool = rng.integers(1, 1 << 63, size=(1 << 17) + 1, dtype=np.uint64)
     p = sk.SketchParams(sketch_size=64)
     want_v, want_c = bk.bottom_k_host(pool, 64)
+    calls = []
+    orig = bk.bottom_k_threshold
 
-    def boom(*a, **kw):
-        raise RuntimeError("INVALID_ARGUMENT: TPU backend error")
+    def never_ok(*a, **kw):
+        calls.append(kw["boost"])
+        v, c, n, ok = orig(*a, **kw)
+        return v, c, n, jnp.bool_(False)
 
-    monkeypatch.setattr(bk, "bottom_k_threshold", boom)
+    monkeypatch.setattr(bk, "bottom_k_threshold", never_ok)
     v, c = sk._bottom_k(pool, p, "jax")
-    assert np.array_equal(v, want_v)
-    assert "falling back to the full sort" in capsys.readouterr().err
-
-    monkeypatch.setattr(bk, "bottom_k_distinct", boom)
-    v, c = sk._bottom_k(pool, p, "jax")
+    assert calls == [1, 8]
     assert np.array_equal(v, want_v) and np.array_equal(c, want_c)
-    assert "using the host model" in capsys.readouterr().err
+
+
+def test_compare_gpu_tile_matches_cpu_tile(monkeypatch):
+    """The GPU's compare tile size changes only the tiling, not results."""
+    from fpmash_tpu.ops.compare import all_pairs_common_denom
+
+    rng = np.random.default_rng(2)
+    sk = [np.unique(rng.integers(0, 1 << 20, size=60, dtype=np.uint64))[:40]
+          for _ in range(300)]
+    want = all_pairs_common_denom(sk[:20], sk, 40)
+    monkeypatch.setattr(route, "compare_tile", lambda name=None: 256)
+    got = all_pairs_common_denom(sk[:20], sk, 40)
+    assert np.array_equal(got[0], want[0]) and np.array_equal(got[1], want[1])

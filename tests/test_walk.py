@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 
 from fpmash_tpu.models.distance import compare_sketches
-from fpmash_tpu.ops.walk import all_pairs_walk, pairwise_walk_common_denom
+from fpmash_tpu.ops.walk import all_pairs_walk
 
 
 def _rand_list(rng, n, dup_pool=50):
@@ -106,55 +106,3 @@ def test_dist_routes_unsorted_through_walk_kernel(monkeypatch):
            for ri, qi, r in all_pairs_dist(ref, qry, backend="scalar")]
     assert dev == sca
     assert calls, "unsorted dist did not route through the walk kernel"
-
-
-def test_walk_pallas_matches_xla_walk():
-    """Shift-register Pallas kernel == lockstep XLA walk (interpret) on
-    adversarially unsorted lists with duplicates and varied lengths."""
-    import jax.numpy as jnp
-
-    from fpmash_tpu.ops.walk_pallas import pairwise_walk_pallas
-
-    rng = np.random.default_rng(4)
-    # S buckets cover the pair-packing tiers: <=32 packs 4 pairs/row,
-    # <=64 packs 2, >64 one pair/row; Q=8 with P=4 exercises row padding
-    for S, cap in ((40, 30), (150, 1000), (64, 64), (20, 1000), (32, 16)):
-        R = Q = 8
-        ref = rng.integers(0, 60, size=(R, S)).astype(np.uint64)
-        qry = rng.integers(0, 60, size=(Q, S)).astype(np.uint64)
-        rl = rng.integers(0, S + 1, size=R).astype(np.int32)
-        ql = rng.integers(0, S + 1, size=Q).astype(np.int32)
-        c1, d1 = pairwise_walk_pallas(
-            jnp.asarray(ref), jnp.asarray(rl), jnp.asarray(qry), jnp.asarray(ql),
-            sketch_size=cap, interpret=True,
-        )
-        c0, d0 = pairwise_walk_common_denom(
-            jnp.asarray(ref), jnp.asarray(rl), jnp.asarray(qry), jnp.asarray(ql),
-            sketch_size=cap,
-        )
-        assert np.array_equal(np.asarray(c0), np.asarray(c1)), (S, cap)
-        assert np.array_equal(np.asarray(d0), np.asarray(d1)), (S, cap)
-
-
-def test_walk_route_selects_pallas_on_tpu(monkeypatch):
-    import jax
-
-    from fpmash_tpu.ops import walk as walk_mod
-    from fpmash_tpu.ops import walk_pallas
-
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    calls = []
-    orig = walk_pallas.pairwise_walk_pallas
-
-    def fake(ref, rl, qry, ql, *, sketch_size, max_steps=None):
-        calls.append(sketch_size)
-        return walk_mod.pairwise_walk_common_denom(
-            ref, rl, qry, ql, sketch_size=sketch_size
-        )
-
-    monkeypatch.setattr(walk_pallas, "pairwise_walk_pallas", fake)
-    rng = np.random.default_rng(5)
-    refs = [_rand_list(rng, 20) for _ in range(4)]
-    c, d = all_pairs_walk(refs, refs, 30)
-    assert calls == [30], "TPU backend did not select the pallas walk tile"
-    jax.clear_caches()
